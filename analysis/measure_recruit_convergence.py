@@ -76,8 +76,7 @@ def main() -> None:
     st, templates = jax.jit(lambda s: init_imageseq(params, sc, s, 15))(st)
     run = make_imageseq_scan_runner(
         params, templ_width=15, recruit=True, recruit_max=12,
-        detector_corners=64, use_pallas=not args.smoke,
-        recruit_depth=args.depth)
+        detector_corners=64, recruit_depth=args.depth)
 
     @jax.jit
     def slot_errors(x):

@@ -1,22 +1,22 @@
 """Quantify the f32 accuracy penalty of the large-K EKF (VERDICT round 2,
-weak #2): run the SAME K-landmark imageseq scenario (render -> Pallas/XLA NCC
--> fused EKF) in f32 (with its TPU mitigations: covar_diag_inflation +
-delete-unobserved) and in f64 (clean, the reference's configuration —
+weak #2): run the SAME K-landmark imageseq scenario (render -> NCC search
+-> fused EKF) in f32 (with its conditioning mitigations: covar_diag_inflation
++ delete-unobserved) and in f64 (clean, the reference's configuration —
 davison-mono-slam.cpp runs f64 with neither mitigation), and report the
 trajectory ATE of each.
 
 The reference never faced this tradeoff (host f64 throughout, rt-config.h:42);
-a TPU-native framework owns it: TPUs have no f64 hardware, so the on-chip
-filter runs f32 and the question "how much accuracy does f32 + its
-conditioning mitigations cost?" must be answered by measurement, not hope.
+the benchmarks run the filter in f32, so the question "how much accuracy
+does f32 + its conditioning mitigations cost?" must be answered by
+measurement, not hope.
 
 One configuration per invocation (dtype selection must happen before JAX
 initializes x64 state, and mixing x64-enabled and -disabled runs in one
 process risks silent promotion of the "f32" run):
 
-  env -u PYTHONPATH JAX_PLATFORMS=cpu python analysis/precision_large_k.py \
+  JAX_PLATFORMS=cpu python analysis/precision_large_k.py \
       --dtype f64 --capacity 768 --frames 120
-  env -u PYTHONPATH JAX_PLATFORMS=cpu python analysis/precision_large_k.py \
+  JAX_PLATFORMS=cpu python analysis/precision_large_k.py \
       --dtype f32 --capacity 768 --frames 120 --mitigations
 
 ``--mode ekf`` drops the imagery (render + NCC template search — whose CPU
@@ -46,7 +46,7 @@ def main() -> int:
     ap.add_argument("--dtype", choices=["f32", "f64"], required=True)
     ap.add_argument("--mitigations", action="store_true",
                     help="covar_diag_inflation=1e-6 + max_undetected_frames="
-                         "60 (the f32 TPU conditioning policy)")
+                         "60 (the f32 conditioning policy)")
     ap.add_argument("--capacity", type=int, default=768)
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--chunk", type=int, default=40)
@@ -84,10 +84,7 @@ def main() -> int:
                                      image_size=(640, 480))
         st = init_state(K, dtype=dtype)
         st, templates = jax.jit(lambda s: init_imageseq(params, sc, s, 15))(st)
-        # Pallas NCC is a TPU kernel; the XLA conv path is bit-tested
-        # against it (bench ncc_pallas_maxdiff) and runs on CPU
-        run_img = make_imageseq_scan_runner(params, templ_width=15,
-                                            use_pallas=False)
+        run_img = make_imageseq_scan_runner(params, templ_width=15)
         run = lambda st_, fr: run_img(st_, templates, sc, fr)  # noqa: E731
     else:
         sc = build_oscillating_scenario(capacity=K, dtype=dtype)

@@ -49,8 +49,8 @@ def main() -> None:
     reps = 3
     print(f"K={K} D={D} M={M}", flush=True)
 
-    def t(name, fn, make_args, flops=None):
-        dt = _time_compiled(fn, make_args, reps)
+    def t(name, fn, args, flops=None):
+        dt = _time_compiled(fn, args, reps)
         eff = f"  ({flops / dt / 1e12:5.1f} TFLOP/s)" if flops else ""
         print(f"{name:34s} {dt * 1e3:8.3f} ms{eff}", flush=True)
         return dt
@@ -59,32 +59,31 @@ def main() -> None:
 
     t("cholesky(S2) [M,M]",
       lambda s: jnp.linalg.cholesky(s),
-      lambda r: (S2 + 1e-6 * (r + 1) * jnp.eye(M, dtype=dtype),),
+      (S2,),
       flops=M ** 3 / 3)
     t("trsm C \\ [A2|r]  [M, D+1]",
       lambda c, a: solve_triangular(c, a, lower=True),
-      lambda r: (C * (1.0 + 1e-6 * r), jnp.concatenate(
-          [A2, A2[:, :1]], axis=1)),
+      (C, jnp.concatenate([A2, A2[:, :1]], axis=1)),
       flops=M * M * (D + 1))
     t("gram downdate B^T B [D,D]",
       lambda b: b.T @ b,
-      lambda r: (B * (1.0 + 1e-6 * r),),
+      (B,),
       flops=2.0 * M * D * D)
     t("downdate w/ epilogue P*kk^T - B^T B",
       lambda b, p: p * (keep[:, None] * keep[None, :]) - b.T @ b,
-      lambda r: (B * (1.0 + 1e-6 * r), P),
+      (B, P),
       flops=2.0 * M * D * D)
     t("mask pass alone P*kk^T",
       lambda p: p * (keep[:, None] * keep[None, :]),
-      lambda r: (P * (1.0 + 1e-6 * r),))
+      (P,))
     t("symmetrize 0.5*(X+X^T)",
       lambda p: 0.5 * (p + p.T),
-      lambda r: (P * (1.0 + 1e-6 * r),))
+      (P,))
 
     t("downdate, barrier-split GEMM",
       lambda b, p: p * (keep[:, None] * keep[None, :])
       - jax.lax.optimization_barrier(b.T @ b),
-      lambda r: (B * (1.0 + 1e-6 * r), P),
+      (B, P),
       flops=2.0 * M * D * D)
 
     # the S^-1 alternative: two GEMMs instead of the big trsm
@@ -92,12 +91,12 @@ def main() -> None:
       lambda c: solve_triangular(
           c, solve_triangular(c, jnp.eye(M, dtype=dtype), lower=True),
           lower=True, trans=1),
-      lambda r: (C * (1.0 + 1e-6 * r),),
+      (C,),
       flops=2.0 * M ** 3 / 2)
     Sinv = jnp.linalg.inv(S2)
     t("G = Sinv @ A2 [M,M]@[M,D]",
       lambda s, a: s @ a,
-      lambda r: (Sinv * (1.0 + 1e-6 * r), A2),
+      (Sinv, A2),
       flops=2.0 * M * M * D)
 
 

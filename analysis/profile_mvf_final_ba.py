@@ -77,12 +77,11 @@ def main() -> None:
                                     device_loop=True)
         ba.set_plan_inputs(fidx, mask)
         t0 = time.time()
-        ok, p1 = ba.compute_inplace(ps, term)
+        jax.block_until_ready(ba.compute_inplace(ps, term))
         t_first = time.time() - t0
         sig = getattr(ba, "_band_sig", None)
         t0 = time.time()
-        ok, _ = ba.compute_inplace(
-            ps._replace(points=ps.points * (1.0 + 1e-6)), term)
+        jax.block_until_ready(ba.compute_inplace(ps, term))
         t_warm = time.time() - t0
         print(f"{name}: warm {t_warm:.2f}s = "
               f"{ba.iterations / max(t_warm, 1e-9):.2f} iters/s "

@@ -6,7 +6,7 @@ loop's own machinery — this script times every piece on the same
 10240 x 512-shaped problem the at-scale demo emits, so the gap has numbers
 instead of suspects.
 
-    python analysis/profile_pipeline_ba.py          # on TPU (default env)
+    python analysis/profile_pipeline_ba.py
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ def main() -> None:
                                           TermCriteria)
     from surikatoko_tpu.models.ba import sparse as sp
     from roofline_schur import _time_compiled
+    from surikatoko_tpu.utils.profiling import median_wall_time
 
     dtype = jnp.float32
     NP_BA, F_BA, L_BA, PC = 10240, 512, 12, 2048
@@ -38,9 +39,7 @@ def main() -> None:
     ps = build_problem(NP_BA, F_BA, L_BA, noise_pix=0.5, seed=0, dtype=dtype)
     reps = 3
 
-    t_blocks = _time_compiled(
-        sp.compute_blocks,
-        lambda r: (ps._replace(points=ps.points * (1.0 + 1e-6 * r)),), reps)
+    t_blocks = _time_compiled(sp.compute_blocks, (ps,), reps)
     print(f"compute_blocks                 {t_blocks * 1e3:8.2f} ms",
           flush=True)
 
@@ -56,8 +55,7 @@ def main() -> None:
 
     solve_static = functools.partial(sp.solve_corrections_schur_banded,
                                      plan=plan)
-    t_band = _time_compiled(
-        solve_static, lambda r: (ps, blocks, hf * (1.0 + 1e-6 * r)), reps)
+    t_band = _time_compiled(solve_static, (ps, blocks, hf), reps)
     print(f"banded solve (static ext)      {t_band * 1e3:8.2f} ms",
           flush=True)
 
@@ -66,21 +64,16 @@ def main() -> None:
                                      plan=plan)
     t_band_tr = _time_compiled(
         lambda p_, b_, h_, e_: solve_traced(p_, b_, h_, ext_idx=e_),
-        lambda r: (ps, blocks, hf * (1.0 + 1e-6 * r), ext), reps)
+        (ps, blocks, hf, ext), reps)
     print(f"banded solve (traced ext)      {t_band_tr * 1e3:8.2f} ms",
           flush=True)
 
-    t_err = _time_compiled(
-        sp.reproj_error,
-        lambda r: (ps._replace(points=ps.points * (1.0 + 1e-6 * r)),), reps)
+    t_err = _time_compiled(sp.reproj_error, (ps,), reps)
     print(f"reproj_error                   {t_err * 1e3:8.2f} ms", flush=True)
 
     dX, du, ok = jax.jit(solve_static)(ps, blocks, hf)
     jax.block_until_ready(dX)
-    t_apply = _time_compiled(
-        sp.apply_corrections,
-        lambda r: (ps._replace(points=ps.points * (1.0 + 1e-6 * r)), dX, du),
-        reps)
+    t_apply = _time_compiled(sp.apply_corrections, (ps, dX, du), reps)
     print(f"apply_corrections              {t_apply * 1e3:8.2f} ms",
           flush=True)
 
@@ -98,18 +91,13 @@ def main() -> None:
     # ba.compute (not compute_inplace): the ring world's cam0->cam1 shift has
     # no y component, so the default unity_comp_ind=1 gauge refuses to
     # normalize — and the LM core is what's being timed here anyway
+    pr = ps._replace(points=pts_pert)
     t0 = time.time()
-    ok, p_opt = ba.compute(ps._replace(points=pts_pert), term)
+    jax.block_until_ready(ba.compute(pr, term))
     print(f"device-LM compile+first        {time.time() - t0:8.2f} s "
           f"({ba.iterations} iters, {ba.trials} trials, "
           f"'{ba.stop_reason}')", flush=True)
-    ts = []
-    for r in range(3):
-        pr = ps._replace(points=pts_pert * (1.0 + 1e-6 * (r + 1)))
-        t0 = time.time()
-        ok, p_opt = ba.compute(pr, term)
-        ts.append(time.time() - t0)
-    t_lm = sorted(ts)[1]
+    t_lm = median_wall_time(lambda: ba.compute(pr, term))
     print(f"device-LM 5 iters              {t_lm * 1e3:8.2f} ms "
           f"({ba.iterations} iters, {ba.trials} trials) = "
           f"{ba.iterations / t_lm:.2f} iters/s", flush=True)
@@ -129,17 +117,11 @@ def main() -> None:
                                  unity_comp_ind=uci, device_loop=True)
     ba2.set_plan_inputs(ps.frame_idx, ps.obs_mask)
     t0 = time.time()
-    ok, p_opt = ba2.compute_inplace(ps._replace(points=pts_pert), term)
+    jax.block_until_ready(ba2.compute_inplace(pr, term))
     print(f"fused inplace compile+first    {time.time() - t0:8.2f} s "
           f"({ba2.iterations} iters, {ba2.trials} trials, "
           f"'{ba2.stop_reason}')", flush=True)
-    ts = []
-    for r in range(3):
-        pr = ps._replace(points=pts_pert * (1.0 + 1e-6 * (r + 1)))
-        t0 = time.time()
-        ok, p_opt = ba2.compute_inplace(pr, term)
-        ts.append(time.time() - t0)
-    t_ip = sorted(ts)[1]
+    t_ip = median_wall_time(lambda: ba2.compute_inplace(pr, term))
     print(f"fused inplace 5 iters          {t_ip * 1e3:8.2f} ms "
           f"({ba2.iterations} iters, {ba2.trials} trials) = "
           f"{ba2.iterations / t_ip:.2f} iters/s", flush=True)

@@ -5,8 +5,9 @@ one world per call, demos/demo-bundle-adj-circle-grid.cpp): because the whole
 LM damping schedule compiles as one jittable program (models/ba/lm_device.py),
 it vmaps — B independently-corrupted circle-grid worlds are normalized,
 optimized, and reverted as ONE device program. This is the natural shape of a
-Monte-Carlo noise-sensitivity sweep or multi-hypothesis refinement on TPU:
-the per-problem matrices are small, so batching is what fills the MXU.
+Monte-Carlo noise-sensitivity sweep or multi-hypothesis refinement on an
+accelerator: the per-problem matrices are small, so batching is what fills
+the device.
 
 Usage: python demos/demo_batch_ba.py [--batch 32] [--noise_pnt 0.06]
     [--compare_sequential] [--f32]
@@ -35,10 +36,14 @@ def main() -> int:
     ap.add_argument("--compare_sequential", action="store_true",
                     help="also time solving the problems one at a time")
     ap.add_argument("--f32", action="store_true",
-                    help="f32 with f32-accumulation matmuls (TPU)")
+                    help="f32 with full-precision f32 matmuls")
     args = ap.parse_args()
 
     import jax
+
+    from surikatoko_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.f32:
         jax.config.update("jax_default_matmul_precision", "highest")
     else:

@@ -1,6 +1,6 @@
 """Circle-grid BA noise-recovery demo.
 
-TPU-native equivalent of reference demos/demo-bundle-adj-circle-grid.cpp:
+Equivalent of reference demos/demo-bundle-adj-circle-grid.cpp:
 synthetic grid world viewed from a circular camera path; corrupt points and
 rotations with noise; BA recovers; before/after stats.
 
@@ -29,6 +29,10 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+
+    from surikatoko_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 

@@ -1,6 +1,6 @@
 """Oxford dinosaur bundle adjustment demo.
 
-TPU-native equivalent of reference demos/demo-bundle-adj-dinosaur.cpp: load
+Equivalent of reference demos/demo-bundle-adj-dinosaur.cpp: load
 36 P-matrices + point tracks (or the synthetic dino stand-in if the VGG files
 aren't present), decompose/triangulate, run Kanatani-style LM+Schur BA,
 report f0-scaled and per-point pixel error before/after.
@@ -38,13 +38,17 @@ def main() -> int:
                          "demo-bundle-adj-dinosaur.cpp:97-116)")
     ap.add_argument("--x64", action="store_true", default=True)
     ap.add_argument("--f32", action="store_true",
-                    help="run f32 with f32-accumulation matmuls (TPU)")
+                    help="run f32 with full-precision f32 matmuls")
     ap.add_argument("--host_loop", action="store_true",
                     help="host-driven LM (default: whole LM compiled "
                          "on device as one program)")
     args = ap.parse_args()
 
     import jax
+
+    from surikatoko_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.f32:
         jax.config.update("jax_default_matmul_precision", "highest")
     elif args.x64:

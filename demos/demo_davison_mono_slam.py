@@ -1,6 +1,6 @@
 """Davison MonoSlam demo driver.
 
-TPU-native equivalent of reference demos/davison-mono-slam/
+Equivalent of reference demos/davison-mono-slam/
 demo-davison-mono-slam.cpp: JSON scene/camera config + CLI flags, virtual
 world (GT-projecting matcher with fault injection) or real image directory
 (Shi-Tomasi + batched ellipse-gated NCC matcher), per-frame stats, and a
@@ -122,6 +122,10 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+
+    from surikatoko_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.x64:
         jax.config.update("jax_enable_x64", True)
     import numpy as np

@@ -1,6 +1,6 @@
 """Incremental multi-view factorization demo.
 
-TPU-native equivalent of reference demos/demo-multi-view-factorization.cpp:
+Equivalent of reference demos/demo-multi-view-factorization.cpp:
 synthetic rectangular-path world, GT-projecting corners matcher, first two
 frames carry known pose+points ("well_known_frames"), then per-frame
 IntegrateNewFrameCorners with BA triggering. fake_localization/fake_mapping
@@ -38,6 +38,10 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+
+    from surikatoko_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_enable_x64", True)
     import numpy as np
     import jax.numpy as jnp

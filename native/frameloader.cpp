@@ -1,6 +1,6 @@
 // Native frame loader: PGM/PPM decode + background prefetch ring buffer.
 //
-// The TPU-native equivalent of the reference's native IO path (the C++ demos
+// The equivalent of the reference's native IO path (the C++ demos
 // read image sequences synchronously through OpenCV,
 // demo-davison-mono-slam.cpp:1699-1729). Here decode runs on a worker thread
 // ahead of the tracker so host IO overlaps device compute; Python binds via

@@ -1,13 +1,12 @@
 """Runtime configuration: scalar dtype policy and debug switches.
 
 The reference selects ``Scalar`` = f32/f64 at CMake configure time
-(suriko-engine/CMakeLists.txt:14, rt-config.h:42). On TPU, f64 is emulated and
-slow, so the policy here is:
+(suriko-engine/CMakeLists.txt:14, rt-config.h:42). The policy here is:
 
 * library code is dtype-polymorphic — it follows its inputs;
 * :func:`default_dtype` picks f64 when ``jax_enable_x64`` is on (CPU tests /
   parity checks vs the reference, which is f64 by default) and f32 otherwise
-  (TPU benches), with Joseph-form covariance updates + periodic
+  (the benchmarks), with Joseph-form covariance updates + periodic
   symmetrization making the EKF f32-stable (see models/monoslam/update.py).
 """
 

@@ -1,6 +1,6 @@
 """Math core: quaternions, SO(3)/SE(3), camera model, triangulation, ellipses.
 
-TPU-native equivalent of the reference's obs-geom/quat/lin-alg layer
+Equivalent of the reference's obs-geom/quat/lin-alg layer
 (suriko-engine/include/suriko/obs-geom.h, quat.h) — pure functions over JAX
 arrays, Taylor-safe near singularities so everything is jit/grad-safe.
 """

@@ -11,8 +11,8 @@ Parity notes (vs reference davison-mono-slam.cpp):
   mm via the pixel size, ru = rd + k1 rd^3 + k2 rd^5; the *distorted* pixel is
       hd = C + (hu - C)/stretch,    stretch = 1 + k1 rd^2 + k2 rd^4,
   and undistortion (:2405) evaluates rd directly from hd then multiplies by
-  stretch. The reference solves the quintic with Eigen's PolynomialSolver; on
-  TPU we use a fixed-iteration Newton solve (jit-friendly, converges in <6
+  stretch. The reference solves the quintic with Eigen's PolynomialSolver;
+  here a fixed-iteration Newton solve (jit-friendly, converges in <6
   iterations for realistic k1,k2).
 * Azimuth/elevation of a direction (:399 ``AzimElevFromEuclidCoords``):
       theta = atan2(x, z),  phi = atan2(-y, sqrt(x^2+z^2))

@@ -4,7 +4,7 @@ Equivalent of reference obs-geom.cpp:606-677 (``DecomposeProjMat``) and
 :679-727 (``Triangulate3DPointByLeastSquares``). The triangulator here is
 batched and masked: a fixed number of frame slots per point with a validity
 mask, so thousands of tracks triangulate as one vmapped 3x3 normal-equation
-solve — MXU-friendly, no per-track dynamic shapes.
+solve — batched, no per-track dynamic shapes.
 
 Projection convention for these P matrices (Kanatani's f0-scaled form, used by
 the BA stack and the dino dataset):  [u, v, f0]^T ∝ P @ [X, 1]^T.

@@ -1,4 +1,4 @@
-"""Kanatani-style bundle adjustment, TPU-native.
+"""Kanatani-style bundle adjustment in JAX.
 
 Re-design of the reference ``BundleAdjustmentKanatani``
 (bundle-adj-kanatani.{h,cpp}): f0-scaled reprojection error, per-frame
@@ -10,7 +10,7 @@ and a Schur-complement reduced camera solve.
 Where the reference hand-derives ~1400 lines of "pqr" first/second
 derivatives (bundle-adj-kanatani.cpp:1140-1548), this stack uses one
 autodiff'd residual and batched Gauss-Newton blocks (einsum over the dense
-point-x-frame observation grid) — MXU-shaped by construction.
+point-x-frame observation grid) — dense contractions by construction.
 """
 
 from surikatoko_tpu.models.ba.problem import (

@@ -4,9 +4,8 @@ device dispatch.
 
 The host-driven driver (lm.py) mirrors the reference's control flow
 (ComputeOnNormalizedWorld, bundle-adj-kanatani.cpp:720-893) with 4 device
-calls and 2+ blocking host syncs per iteration — fine on-die, but each sync
-is a full round-trip on a remote-attached TPU and it serializes everything.
-This module compiles the identical control flow on device:
+calls and 2+ blocking host syncs per iteration, and each sync serializes
+host and device. This module compiles the identical control flow on device:
 
   outer while (running & iters < max):   recompute GN blocks at current p
     inner while (no accept/stop yet):    solve damped system at `factor`

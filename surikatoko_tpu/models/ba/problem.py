@@ -1,10 +1,10 @@
 """BA problem container + f0-scaled reprojection error.
 
 Data layout is a dense (points x frames) observation grid with a mask —
-shape-stable, vmap/MXU-friendly, and the natural layout for the Schur
+shape-stable, vmap-friendly, and the natural layout for the Schur
 reduction einsums. (The reference iterates CornerTrack linked structures;
-dino density is ~16%, and the masked-dense form is still far faster on TPU
-than gather-based sparsity at these sizes.)
+dino density is ~16%; the track-major sparse store in sparse.py serves the
+large sparse problems.)
 
 Error convention (reference ReprojErrorWithOverlap, bundle-adj-kanatani.cpp
 :410-490): with K already f0-scaled (rows 0,1 divided by f0 — see the dino

@@ -58,9 +58,9 @@ class BAProblemSparse(NamedTuple):
 def dense_obs_to_tracks(obs, obs_mask):
     """Host-side vectorized dense-grid -> track-major conversion: numpy
     (obs [Np,F,2], mask [Np,F]) -> (obs_s [Np,L,2], frame_idx [Np,L] int32,
-    track_mask [Np,L]) with L = max track length. Pure numpy — callers on a
-    remote-attached TPU hand in HOST copies so no device->host fetch
-    happens (see SparseBundleAdjustment.set_plan_inputs)."""
+    track_mask [Np,L]) with L = max track length. Pure numpy — callers hand
+    in HOST copies so no device->host fetch happens (see
+    SparseBundleAdjustment.set_plan_inputs)."""
     import numpy as np
 
     obs = np.asarray(obs)
@@ -158,7 +158,7 @@ def solve_corrections_schur_sparse(
     unity_comp_ind: int = 1, optimize_intrinsics: bool = True,
     point_chunk: int = 2048, pin_frames: tuple = (),
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Two-phase Schur solve; the reduction rides the MXU in Gram form.
+    """Two-phase Schur solve; the reduction is one dense matmul in Gram form.
 
     S = G_diag - sum_i F_i^T E_i^-1 F_i is computed as G_diag - B^T B with
     B_i = L_i^-1 F_i (E_i = L_i L_i^T batched 3x3 Cholesky): per point chunk,
@@ -167,17 +167,13 @@ def solve_corrections_schur_sparse(
     accumulates every (l, m) frame-pair cross term. This replaces the direct
     form's pc*L^2 10x10 block scatter-adds (the reference's per-point loop,
     bundle-adj-kanatani.cpp:1888): the O(pc * (10F)^2) FLOPs of the dense
-    strip product are ~40x the nonzero work at L=12, F=500, but the MXU runs
-    them two orders of magnitude faster than TPU scatter-adds — measured
-    ~71% of the chip's honestly-measured f32 matmul ceiling (the driver
-    artifact owns the number: BENCH schur_pct_of_ceiling, 71.5 in r04)
-    and 3.3x faster LM iterations on the 10k x 500 configuration
-    (analysis/roofline_schur.py). The transposed strip layout
-    (point dim minor = 128-lane aligned) matters: the [pc,3,F,10] form puts
-    the 10-wide block in the lane dimension and the (8,128) tiling pads its
-    HBM writes ~12.8x (measured 81 -> 64 ms for the reduction). The rhs
-    reduction and the point back-substitution ride the same Cholesky factor
-    (no batched 3x3 inverse). Exact same math: zero rows multiply to zero."""
+    strip product are ~40x the nonzero work at L=12, F=500, traded for
+    dense matmul throughput instead of small scatter-adds
+    (analysis/roofline_schur.py measures the rate; bench.py reports it as
+    schur_pct_of_ceiling). The strip is built transposed (point dim minor).
+    The rhs reduction and the point back-substitution ride the same
+    Cholesky factor (no batched 3x3 inverse). Exact same math: zero rows
+    multiply to zero."""
     Np, L = blocks.Fpf.shape[0], blocks.Fpf.shape[1]
     F = p.n_frames
     dtype = blocks.E.dtype
@@ -212,12 +208,8 @@ def solve_corrections_schur_sparse(
         S, red = carry
         sl = lambda x: jax.lax.dynamic_slice_in_dim(x, c * pc, pc)
         Bc, Rc, fc = sl(Bp), sl(Rp), sl(fidxp)
-        # one-hot matmuls instead of scatters: TPU scatter-add of pc*L small
-        # blocks is ~2x slower than this batched one-hot expansion. The
-        # strip is built TRANSPOSED ([10F, 3pc], point dim minor): the
-        # [pc,3,F,10] form puts the 10-wide block in the lane dimension, so
-        # the (8,128) tiling pads its writes ~12.8x — measured 81 -> 64 ms
-        # for the whole reduction at 10k x 500 (2026-08-19, v5e).
+        # one-hot matmuls instead of scatter-adds of pc*L small blocks; the
+        # strip is built TRANSPOSED ([10F, 3pc], point dim minor)
         oh = jax.nn.one_hot(fc, F, dtype=dtype)             # [pc,L,F]
         Bm = jnp.einsum("ilf,ialb->fbai", oh, Bc).reshape(
             F * FRAME_VARS, pc * 3)                         # [10F, 3pc]
@@ -234,9 +226,9 @@ def solve_corrections_schur_sparse(
     d = jnp.sqrt(jnp.maximum(jnp.abs(jnp.diagonal(S2)), 1e-12))
     dinv = 1.0 / d
     S2p = S2 * dinv[:, None] * dinv[None, :]
-    # SPD after damping + gauge unit diagonals: Cholesky is ~3x faster than
-    # LU on TPU at 5000 unknowns; a failed factorization surfaces as NaN and
-    # trips the ok flag (LM then raises the damping factor)
+    # SPD after damping + gauge unit diagonals: Cholesky (not LU); a failed
+    # factorization surfaces as NaN and trips the ok flag (LM then raises
+    # the damping factor)
     du = (dinv * cho_solve(cho_factor(S2p, lower=True), rhs * dinv)
           ).reshape(F, FRAME_VARS)
     du_g = du[p.frame_idx]                                   # [Np,L,10]

@@ -1,4 +1,4 @@
-"""Davison MonoSlam EKF, TPU-native.
+"""Davison MonoSlam EKF in JAX.
 
 Re-design of the reference ``DavisonMonoSlam`` (davison-mono-slam.{h,cpp}) as
 pure functions over fixed-shape pytrees:

@@ -18,9 +18,8 @@ and keep itself needs only diag(P1) = diag(P) - colsum(B^2) — no P1.
 V differs from identity only on the 13 camera rows (W's predict/renorm block)
 and the diagonal (keep), so V P V^T is one elementwise mask pass plus a
 [13,D] stripe matmul, and the final downdate-with-epilogue writes P+ once:
-~2 HBM round-trips over P instead of ~4 (measured -20% frame time at K=96
-on a v5e chip). Numerically identical to the sequential pipeline up to
-matmul reassociation (tests/test_fused_step.py checks 1e-12 on f64).
+~2 HBM passes over P instead of ~4. Numerically identical to the sequential
+pipeline up to matmul reassociation (tests/test_fused_step.py checks 1e-12 on f64).
 
 Reference mapping (davison-mono-slam.cpp): this one function covers the
 per-frame sequence :1114 (P -= K S K^T), :1739 (EnsureNonnegativeStateVariance),
@@ -180,10 +179,8 @@ def _fused_covariance_predict(params, x, P, B, keep, x_next, Cp, G,
     over the [D,D] matrix) and only the 13 camera rows/cols need the
     Cp congruence, applied as stripe overwrites with the column stripe
     COPIED from the row stripe's transpose (keeps P == P^T to GEMM
-    tiling determinism, same as the concat-built predecessor). The
-    previous concat formulation materialized top/bottom/Pw separately —
-    measured 0.84 ms/frame slower at K=768 on v5e (7.04 -> 6.20 ms).
-    Algebraically identical; float-level differences are mask/Cp
+    tiling determinism, same as the concat-built predecessor, which
+    materialized top/bottom/Pw separately). Algebraically identical; float-level differences are mask/Cp
     reassociation only (f64 parity tests unaffected)."""
     dtype = x.dtype
     Q = params.process_noise_cov.astype(dtype)

@@ -95,8 +95,8 @@ def bad_uncertainty_mask(x: jnp.ndarray, P: jnp.ndarray, capacity: int,
     (non-PSD / non-finite propagated covariance) — candidates for removal.
 
     Positive-definiteness via Sylvester's criterion (three leading minors)
-    instead of eigendecomposition: closed-form and ~10x cheaper than the K
-    batched 3x3 eigh calls on TPU (hot: runs every frame)."""
+    instead of eigendecomposition: closed-form, no K batched 3x3 eigh calls
+    (hot: runs every frame)."""
     _, covs = landmark_pos_covariances(x, P, capacity, substitute_rho, repres)
     a, b, c = covs[:, 0, 0], covs[:, 0, 1], covs[:, 0, 2]
     d, e, f = covs[:, 1, 1], covs[:, 1, 2], covs[:, 2, 2]

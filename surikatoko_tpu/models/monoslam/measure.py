@@ -168,7 +168,7 @@ def batched_jacobians(params: MonoSlamParams, cam13: jnp.ndarray,
                       ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """(h [K,2], Hcam [K,2,13], Hlm [K,2,6]) for landmark slots ``lms``.
 
-    Analytic, fully [K]-batched chain rule — the TPU-hot equivalent of the
+    Analytic, fully [K]-batched chain rule — the hot-path equivalent of the
     reference's hand-written Deriv_hd_by_cam_state_and_sal_pnt
     (davison-mono-slam.cpp:3067-3360). The camera-shared pieces (R, dR/dq) are
     computed once, every per-landmark factor is a [K,...] tensor op; measured

@@ -30,9 +30,9 @@ SAL_PNT_COMPS = 6
 PROCESS_NOISE_COMPS = 6  # velocity + angular velocity white noise
 
 # Salient-point representation (reference SAL_PNT_REPRES compile-time switch,
-# suriko-engine/CMakeLists.txt:14-17, davison-mono-slam.h:39). The TPU build
+# suriko-engine/CMakeLists.txt:14-17, davison-mono-slam.h:39). This build
 # keeps ONE 6-wide slot layout for both: XYZ uses comps [0:3] and pads [3:6]
-# with zeros (zero covariance rows — dead weight a dense TPU kernel doesn't
+# with zeros (zero covariance rows — dead weight a dense kernel doesn't
 # notice), so both representations share every compiled kernel.
 REPRES_XYZ = 1
 REPRES_SPHERICAL = 2
@@ -57,7 +57,7 @@ class MonoSlamParams(NamedTuple):
     # divergence_pix / monoslam_1pransac_high_innov_chisq_thr_pix2)
     ransac_corner_max_divergence_pix: jnp.ndarray | None = None  # None -> noise std
     ransac_high_innov_chi_square_thresh: jnp.ndarray | None = None  # None -> 9.21034
-    # per-frame covariance diagonal inflation (TPU-f32 conditioning: keeps P
+    # per-frame covariance diagonal inflation (f32 conditioning: keeps P
     # positive definite over thousands of chained downdates; the reference's
     # f64 never needed it — see fused_step). 0.0 = off.
     covar_diag_inflation: jnp.ndarray | None = None

@@ -48,9 +48,8 @@ def _dense_h(Hcam: jnp.ndarray, Hlm: jnp.ndarray) -> jnp.ndarray:
 
     The reference never builds H either (it compresses the observed subset);
     an earlier revision here kept H implicit and computed A = H P with
-    per-slot [2,6]x[6,D] einsums — measured 70us/frame at K=96 on a v5e chip
-    because the MXU never sees a big contraction. One 2K x D dense matmul is
-    ~20x faster despite doing ~40x the FLOPs: on TPU, feed the systolic array.
+    per-slot [2,6]x[6,D] einsums, which never form a big contraction. One
+    2K x D dense matmul replaces them despite doing ~40x the FLOPs.
     """
     K = Hcam.shape[0]
     eye = jnp.eye(K, dtype=Hcam.dtype)
@@ -65,10 +64,10 @@ def _hp(Hcam: jnp.ndarray, Hlm: jnp.ndarray, P: jnp.ndarray) -> jnp.ndarray:
 
 
 def _h_group(K: int) -> int:
-    """Landmark-group size for the blocked H application: the largest g with
-    6g a multiple of the 128-lane tile AND g | K (so no padding logic), or 0
-    to use the dense path. Dense stays optimal at small K (the [2K,D] matmul
-    is latency-bound there and grouping only adds dispatches)."""
+    """Landmark-group size for the blocked H application: the first of
+    64/128/32 slots that divides K (so no padding logic), or 0 to use the
+    dense path. Dense is used at small K (the [2K,D] matmul is latency-bound
+    there and grouping only adds dispatches)."""
     if K < 256:
         return 0
     for g in (64, 128, 32):     # 6g = 384 / 768 / 192 contraction widths
@@ -82,12 +81,10 @@ def hp_blocked(Hcam: jnp.ndarray, Hlm: jnp.ndarray, P: jnp.ndarray,
     """A = H P [2K, D] without materializing the [2K, 6K] zero-block sea.
 
     H's landmark half is block-diagonal ([2,6] per slot). Grouping g slots
-    gives a batched [K/g, 2g, 6g] @ [K/g, 6g, D] matmul — g=64 makes every
-    operand tile-aligned (rows 2g=128, contraction 6g=384=3x128 lanes) so
-    the MXU runs it at full efficiency with K/g = ~12x fewer FLOPs than the
-    dense product at the ~1k-landmark regime (where H@P is the single
-    largest matmul of the frame: 2K x D x D). Identical numerics up to
-    matmul reassociation."""
+    gives a batched [K/g, 2g, 6g] @ [K/g, 6g, D] matmul with K/g = ~12x
+    fewer FLOPs than the dense product at the ~1k-landmark regime (where H@P
+    is the single largest matmul of the frame: 2K x D x D). Identical
+    numerics up to matmul reassociation."""
     K, D = Hcam.shape[0], P.shape[-1]
     g = group
     G = K // g
@@ -135,7 +132,7 @@ def stacked_update(params: MonoSlamParams, x: jnp.ndarray, P: jnp.ndarray,
                    ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """One stacked EKF update over all observed slots.
 
-    Returns (x', P', masked residual [K,2]). Hot path: three dense MXU
+    Returns (x', P', masked residual [K,2]). Hot path: three dense
     matmuls A = H P, S = A H^T + R, P -= B^T B (reference :1004-1114), where
     B = C^-1 A for the innovation Cholesky factor S = C C^T. Writing the
     downdate as the Gram product B^T B (instead of K S K^T with the explicit

@@ -1,5 +1,5 @@
 """Multi-view geometry front-end: the capabilities of the reference's Python
-prototype (py_proto/suriko/mvg.py, SURVEY §2.4) re-built TPU-first.
+prototype (py_proto/suriko/mvg.py, SURVEY §2.4) re-built as batched JAX.
 
 homography DLT + decomposition, fundamental 8/7-point, essential-matrix
 estimation + pose extraction with cheirality, Sampson correction, and a

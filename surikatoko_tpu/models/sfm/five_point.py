@@ -17,7 +17,8 @@ instead of shipping generated tables:
    eigenvectors evaluate the basis monomials at each of the <=10 solutions.
 
 The 10x10 nonsymmetric eigendecomposition runs through jax.pure_callback
-(numpy) — TPU has no general eig; the matrix is tiny so this costs ~nothing
+(numpy) — a general eig is not on every backend; the matrix is tiny so this
+costs ~nothing
 and the rest of the pipeline stays on device.
 """
 
@@ -107,8 +108,8 @@ def five_point_essential(x1n: jnp.ndarray, x2n: jnp.ndarray
             rows.append(jnp.asarray(e, dtype))
     Ax = jnp.stack(rows)                                    # [10,10]
 
-    # eigenvectors of Ax^T evaluate the basis at the solutions; TPU has no
-    # nonsymmetric eig -> host callback on the tiny 10x10
+    # eigenvectors of Ax^T evaluate the basis at the solutions; nonsymmetric
+    # eig -> host callback on the tiny 10x10
     def host_eig(a):
         w, v = np.linalg.eig(np.asarray(a, np.complex128))
         return (np.ascontiguousarray(w.real.astype(np.float64)),

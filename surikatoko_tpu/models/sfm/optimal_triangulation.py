@@ -7,7 +7,7 @@ epipolar constraint while minimizing geometric distance — by parametrizing
 the epipolar pencil with angle t and finding the global minimum of the
 6th-degree polynomial g(t).
 
-TPU note: the degree-6 root solve is jit-safe — roots come from my own
+Accelerator note: the degree-6 root solve is jit-safe — roots come from my own
 companion-matrix eigenvalue iteration? No: we only need the *real minima* of
 a smooth scalar cost s(t) on a bounded parametrization, so instead of
 polynomial root extraction this implementation minimizes s(t) directly by

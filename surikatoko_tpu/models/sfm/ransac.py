@@ -1,11 +1,11 @@
 """Batched RANSAC: all hypotheses evaluated in one vmap.
 
 Reference: the prototype's sequential loop (py_proto/suriko/mvg.py:1879-1921,
-``RansacIterationsCount`` / ``GetMaxSubsetInConsensus``). TPU-first design:
+``RansacIterationsCount`` / ``GetMaxSubsetInConsensus``). Batched design:
 draw every minimal sample up front with jax.random, fit all models with one
 vmap of the estimator, score all inlier masks as one [M, N] reduction, and
 argmax — no data-dependent trip count (the classic adaptive-exit loop is
-replaced by a generous static M, which on TPU costs less than the serial
+replaced by a generous static M, which on an accelerator costs less than the serial
 dependency it removes).
 """
 

@@ -1,4 +1,4 @@
-"""Batched/Pallas kernels for the engine's hot paths (SURVEY §3.4: the NCC
-search is the #1 kernel candidate)."""
+"""Batched primitives for the engine's hot paths (SURVEY §3.4: the NCC
+search)."""
 
 from surikatoko_tpu.ops import ncc as ncc

@@ -9,7 +9,7 @@ batched program: gather [K, P, P] search patches with dynamic slices, three
 depthwise convolutions for the ZNCC surface, an ellipse-gate mask, and a
 masked argmax — no control flow, every landmark in flight at once.
 
-Contract (shared by the XLA path and the Pallas kernel):
+Contract:
   search(image [H,W] f32, centers [K,2] (x,y) predicted template centers,
          templates [K,T,T], active [K],
          sigma_inv [K,2,2] + chi2  (ellipse gate; None = full window))
@@ -66,7 +66,6 @@ def ncc_search(
     sigma_inv: jnp.ndarray | None = None,   # [K,2,2] pixel-cov inverse
     chi2_gate: float | None = None,
     templ_stats: templ_match.TemplateStats | None = None,
-    use_pallas: bool = False,
     min_search_rect: int = 7,      # reference monoslam_templ_min_search_rect_
                                    # width/height (clamp, default 7x7)
     subpixel: bool = False,
@@ -75,20 +74,16 @@ def ncc_search(
 
     ``subpixel=True`` refines the integer best cell by fitting 1-D parabolas
     through the ZNCC surface values at its 4-neighbours — taken from the
-    surface the search ALREADY computed (the Pallas kernel emits them; the
-    XLA path gathers from its surface). The round-4 implementation
-    re-evaluated 4 ZNCCs per slot with per-slot dynamic slices, ~20% of the
-    K=768 imageseq frame; the surface-sourced version is near-free. The
-    half-pixel quantization of an integer argmax is a ~0.29 px/axis RMS
-    measurement error the reference simply eats (its scan is integer too,
-    demo-davison-mono-slam.cpp:465). On the churned K=768 flagship its ATE
-    effect measured WITHIN the config's +-0.02 code-perturbation noise
-    (2026-08-21 re-measurement: 0.2337 without vs 0.2535 with at the flat
-    prior), so the bench keeps it OFF and pins its Pallas/XLA parity
-    on-chip instead (ncc_subpix_center_maxdiff); it remains the right tool
-    where sub-pixel observations matter and the filter config is tuned for
-    them. A best cell on the window edge keeps its integer center on that
-    axis (surface neighbours only exist inside the window)."""
+    surface the search ALREADY computed, so it costs a gather, not four
+    more ZNCC evaluations per slot. The half-pixel quantization of an
+    integer argmax is a ~0.29 px/axis RMS measurement error the reference
+    simply eats (its scan is integer too, demo-davison-mono-slam.cpp:465).
+    On the churned K=768 flagship its ATE effect sat within the config's
+    +-0.02 code-perturbation noise, so the bench keeps it OFF; it remains
+    the right tool where sub-pixel observations matter and the filter
+    config is tuned for them. A best cell on the window edge keeps its
+    integer center on that axis (surface neighbours only exist inside the
+    window)."""
     K, T, _ = templates.shape
     R = search_radius
     S = 2 * R + 1
@@ -131,29 +126,19 @@ def ncc_search(
     gate = jnp.logical_and(gate, inside)
     n_gated = jnp.sum(gate.reshape(K, S * S).astype(jnp.int32), axis=1)
 
-    if use_pallas:
-        from surikatoko_tpu.ops.ncc_pallas import ncc_surface_argmax_pallas
-
-        res_p = ncc_surface_argmax_pallas(
-            patches.astype(jnp.float32), templates.astype(jnp.float32), gate,
-            with_neigh=subpixel)
-        best_corr, best = res_p[0].astype(dtype), res_p[1]
-        if subpixel:
-            c_n = res_p[2].astype(dtype)
-    else:
-        surf = templ_match.corr_coeff_surface(patches, templates, templ_stats)
-        surf_g = jnp.where(gate, surf, -jnp.inf)
-        flat = surf_g.reshape(K, S * S)
-        best = jnp.argmax(flat, axis=1)
-        best_corr = jnp.take_along_axis(flat, best[:, None], axis=1)[:, 0]
-        if subpixel:
-            # RAW (ungated) surface at best's x-1/x+1/y-1/y+1: row-wrap
-            # garbage at window edges is masked below
-            flat_raw = surf.reshape(K, S * S)
-            nb_idx = jnp.clip(best[:, None]
-                              + jnp.asarray([-1, 1, -S, S])[None, :],
-                              0, S * S - 1)
-            c_n = jnp.take_along_axis(flat_raw, nb_idx, axis=1)    # [K,4]
+    surf = templ_match.corr_coeff_surface(patches, templates, templ_stats)
+    surf_g = jnp.where(gate, surf, -jnp.inf)
+    flat = surf_g.reshape(K, S * S)
+    best = jnp.argmax(flat, axis=1)
+    best_corr = jnp.take_along_axis(flat, best[:, None], axis=1)[:, 0]
+    if subpixel:
+        # RAW (ungated) surface at best's x-1/x+1/y-1/y+1: row-wrap
+        # garbage at window edges is masked below
+        flat_raw = surf.reshape(K, S * S)
+        nb_idx = jnp.clip(best[:, None]
+                          + jnp.asarray([-1, 1, -S, S])[None, :],
+                          0, S * S - 1)
+        c_n = jnp.take_along_axis(flat_raw, nb_idx, axis=1)    # [K,4]
     bx = jnp.take_along_axis(cand_x.reshape(K, S * S), best[:, None], axis=1)[:, 0]
     by = jnp.take_along_axis(cand_y.reshape(K, S * S), best[:, None], axis=1)[:, 0]
 
@@ -165,13 +150,9 @@ def ncc_search(
 
     if subpixel:
         # parabola inputs come straight from the ZNCC surface the search
-        # already computed (the Pallas kernel emits the argmax's 4-neighbour
-        # raw values; the XLA path gathers them from its surface) — the
-        # previous implementation re-evaluated 4 ZNCCs per slot with
-        # per-slot dynamic slices, ~20% of the K=768 imageseq frame.
-        # Surface neighbours only exist INSIDE the search window, so a best
-        # cell on the window edge keeps its integer center on that axis
-        # (it was a gate/window artifact anyway).
+        # already computed. Surface neighbours only exist INSIDE the search
+        # window, so a best cell on the window edge keeps its integer center
+        # on that axis (it was a gate/window artifact anyway).
         bx_off = (best % S).astype(jnp.int32)
         by_off = (best // S).astype(jnp.int32)
         c0 = best_corr
@@ -197,11 +178,11 @@ def ncc_search(
 
 
 def make_ncc_search(search_radius: int, min_corr_coeff: float = 0.5,
-                    chi2_gate: float | None = None, use_pallas: bool = False,
+                    chi2_gate: float | None = None,
                     min_search_rect: int = 7, subpixel: bool = False):
     """jit-ready closure over the static parameters."""
     return jax.jit(functools.partial(
         ncc_search, search_radius=search_radius,
         min_corr_coeff=min_corr_coeff, chi2_gate=chi2_gate,
-        use_pallas=use_pallas, min_search_rect=min_search_rect,
+        min_search_rect=min_search_rect,
         subpixel=subpixel))

@@ -3,7 +3,7 @@
 The reference is single-process (SURVEY §2.5); this layer is the new
 capability: landmark-sharded covariance updates and distributed
 Schur-complement BA over `jax.sharding.Mesh` + `shard_map`, with XLA
-collectives (psum/all_gather) riding ICI.
+collectives (psum/all_gather) between the devices of the mesh.
 """
 
 from surikatoko_tpu.parallel.mesh import (

@@ -2,8 +2,10 @@
 
 One logical axis family covers the engine's scaling dimensions:
   "lm"  — landmark/point blocks (EKF covariance rows, BA landmark blocks)
-Multi-host: build the mesh over all processes' devices
-(jax.distributed.initialize is the caller's responsibility on real slices).
+The mesh is flat and 1-D: on one host the GPUs are joined all to all by
+NVLink, so no torus-shaped layout is needed. Multi-host: build the mesh over
+all processes' devices (jax.distributed.initialize is the caller's
+responsibility, see parallel/multihost.py).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ twin of world/device_runner.make_imageseq_scan_runner (VERDICT r3 item 5).
 Sharding (axis "lm", L = K / n_dev slots per device):
 
   render      each device splats ITS landmarks ([H,L]@[L,W] partial matmul),
-              one psum("lm") assembles the frame — the render's MXU work
+              one psum("lm") assembles the frame — the render's matmul
               distributes with the landmarks
   ellipse     per-slot 2x2 innovation S_k = (H P H^T)_kk + R is LOCAL:
               A_k = H_k P needs only the replicated camera stripe + own
@@ -70,7 +70,6 @@ def make_sharded_imageseq_runner(params: MonoSlamParams, capacity: int,
                                  search_radius: int = 7,
                                  min_corr_coeff: float = 0.6,
                                  chi2_gate: float = 5.99146,
-                                 use_pallas: bool = False,
                                  subpixel: bool = False,
                                  recruit: bool = False,
                                  recruit_max: int = 8,
@@ -168,7 +167,7 @@ def make_sharded_imageseq_runner(params: MonoSlamParams, capacity: int,
                 search_radius=search_radius,
                 min_corr_coeff=min_corr_coeff,
                 sigma_inv=sigma_inv, chi2_gate=chi2_gate,
-                use_pallas=use_pallas, subpixel=subpixel)
+                subpixel=subpixel)
             obs_loc = res.best_center
             mask_loc = res.matched & active_loc & row_ok
 

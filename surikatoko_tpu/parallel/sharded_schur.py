@@ -91,7 +91,7 @@ def make_sharded_sparse_schur_solver(n_points: int, n_frames: int,
                                      pin_frames: tuple = (),
                                      band_plan=None):
     """Distributed sparse Schur solve: point shards each accumulate their
-    partial reduced system (Gram-form MXU matmuls), one psum of [F,10,F,10]
+    partial reduced system (Gram-form matmuls), one psum of [F,10,F,10]
     + rhs, replicated preconditioned solve, local back-substitution. The
     at-scale (10k x 500) configuration sharded over the mesh.
 
@@ -116,7 +116,7 @@ def make_sharded_sparse_schur_solver(n_points: int, n_frames: int,
     def kernel(E, Fpf, gp, fidx, G, gf, hessian_factor):
         # Gram-form reduction (see models/ba/sparse.py): the local shard's
         # -sum F^T E^-1 F accumulates as -B^T B with B = L^-1 F expanded
-        # into dense [3*pc, 10F] strips — one MXU matmul per point chunk.
+        # into dense [3*pc, 10F] strips — one matmul per point chunk.
         dtype = E.dtype
         fmask = _fvm(F, unity_comp_ind, optimize_intrinsics, pin_frames)
         E_d = _damp(E, hessian_factor)
@@ -144,8 +144,8 @@ def make_sharded_sparse_schur_solver(n_points: int, n_frames: int,
             S, red = carry
             sl = lambda x: jax.lax.dynamic_slice_in_dim(x, c * pc, pc)
             Bc, Rc, fc = sl(Bp), sl(Rp), sl(fp)
-            # one-hot matmuls beat TPU scatter-add; TRANSPOSED strip (point
-            # dim minor) avoids 12.8x tile-padded writes — models/ba/sparse.py
+            # one-hot matmuls instead of scatter-adds; TRANSPOSED strip
+            # (point dim minor), as in models/ba/sparse.py
             oh = jax.nn.one_hot(fc, F, dtype=dtype)         # [pc,L,F]
             Bm = jnp.einsum("ilf,ialb->fbai", oh, Bc).reshape(
                 F * FRAME_VARS, pc * 3)                     # [10F, 3pc]

@@ -2,7 +2,7 @@
 
 Capability match for the reference prototype's descriptor-based matching
 (ORB/SIFT pipelines, py_proto/suriko/mvg.py:1922-2395 — there OpenCV does the
-work). TPU-first equivalent: BRIEF-style 256-bit binary descriptors (fixed
+work). Equivalent here: BRIEF-style 256-bit binary descriptors (fixed
 Gaussian sampling pattern over a smoothed patch) computed for all keypoints
 in one vmap, and an all-pairs hamming matcher (XOR + popcount on packed
 uint32 lanes) with mutual-nearest + ratio tests.

@@ -1,17 +1,14 @@
 """Corner detection in pure JAX: Shi-Tomasi (min-eigenvalue) with non-max
-suppression and spatial spreading, shaped for the TPU's VPU.
+suppression and spatial spreading, as elementwise passes over the image.
 
 The reference uses OpenCV ORB purely as a *detector* (50 keypoints,
 demo-davison-mono-slam.cpp:441 — descriptors unused; tracking is NCC).
 Shi-Tomasi plays the same role and vectorizes cleanly.
 
-TPU-first formulation (round 4): single-channel 2-D convs and an 11x11
-``reduce_window`` are pathological on TPU — the MXU wants >=128 channels
-and the windowed max does 121 compares/pixel; the conv-based detector
-measured **47 ms/frame** at 640x480 on a v5e chip, 5x the entire K=768
-EKF frame it feeds. Every filter here is separable, so the whole pass is
-shifted-slice adds/maxes on the [H,W] plane (exact same numbers as the
-zero-padded convs they replace: separable kernels factor through zero
+Formulation: single-channel 2-D convs and an 11x11 ``reduce_window`` do
+121 compares/pixel for the windowed max alone. Every filter here is
+separable, so the whole pass is shifted-slice adds/maxes on the [H,W]
+plane (exact same numbers as the zero-padded convs they replace: separable kernels factor through zero
 padding, and max over a square window == max over rows of max over cols):
 
   - Sobel = [1,2,1] x [-1,0,1] outer products   -> 2 passes of 3-tap adds

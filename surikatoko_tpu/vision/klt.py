@@ -2,7 +2,7 @@
 
 The reference prototype tracks corners with cv2.calcOpticalFlowPyrLK
 (py_proto/suriko/mvg.py:2066, :3331, :5772 — OpenCV does the work, plus a
-border fix at :43). TPU-native equivalent: pure-JAX pyramidal LK — Gaussian
+border fix at :43). Equivalent here: pure-JAX pyramidal LK — Gaussian
 pyramid by strided convolution, per-level fixed-iteration Gauss-Newton on a
 fixed (2w+1)^2 window, every point in one vmap, bilinear gathers. All shapes
 static, so one jit per (levels, window, iters) configuration; iteration count

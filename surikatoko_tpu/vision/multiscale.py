@@ -1,8 +1,8 @@
 """Scale-space keypoints: multi-level detection + steered BRIEF per level.
 
 The reference prototype's ORB/SIFT pipelines (py_proto/suriko/mvg.py:
-1922-2395, OpenCV-backed) are scale-invariant via an image pyramid. TPU-first
-equivalent: a sqrt(2)-factor bilinear pyramid (static level shapes), per-level
+1922-2395, OpenCV-backed) are scale-invariant via an image pyramid. Equivalent
+here: a sqrt(2)-factor bilinear pyramid (static level shapes), per-level
 Shi-Tomasi detection and oriented-BRIEF description, all keypoints reported in
 base-image coordinates with their scale. Matching restricted to compatible
 scale pairs happens naturally through hamming distance (descriptors of the

@@ -10,8 +10,8 @@ convolutions over all landmarks at once:
   corr = corr_prod / (sqrt(win_sum2 - win_sum^2/N) * templ_sqrt_ssd)
 
 This shape (K-channel depthwise conv over a [K, S+T-1, S+T-1] patch stack)
-maps straight onto the MXU; ops/ncc.py wraps it with patch gathering, ellipse
-gating and masked argmax (and provides the fused Pallas kernel).
+maps onto batched convolutions; ops/ncc.py wraps it with patch gathering,
+ellipse gating and masked argmax.
 """
 
 from __future__ import annotations

@@ -138,7 +138,7 @@ def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
     at every visible GT point's projection.
 
     The 2-D gaussian splat is separable, so the sum over landmarks is ONE
-    outer-product contraction Ey^T diag(a) Ex — an [H,K]@[K,W] MXU matmul —
+    outer-product contraction Ey^T diag(a) Ex — an [H,K]@[K,W] matmul —
     instead of K full-image exp evaluations (the naive [K,H,W] path moves
     ~30 MB through HBM; this moves ~0.3 MB and ~54k exps)."""
     H, W = sc.background.shape
@@ -212,7 +212,6 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
                               search_radius: int = 7,
                               min_corr_coeff: float = 0.6,
                               chi2_gate: float = 5.99146,
-                              use_pallas: bool = True,
                               update_impl: int = 1,
                               subpixel: bool = False,
                               recruit: bool = False,
@@ -224,7 +223,7 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
                               target_active: int | None = None,
                               recruit_depth: str = "prior"):
     """Fully on-device real-perception closed loop: render -> ellipse-gated
-    NCC template search (Pallas kernel) -> EKF update -> predict, one lax.scan
+    NCC template search -> EKF update -> predict, one lax.scan
     over frames. The device analog of the reference's imageseq demo
     (ImageTemplCornersMatcher + ProcessFrame), with zero host round-trips.
 
@@ -264,43 +263,45 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
 
     def frame_body(sc: ImageSeqDeviceScenario, carry, f):
         state, templates = carry
-        img = render_frame(params, sc, f)
+        with jax.named_scope("render"):
+            img = render_frame(params, sc, f)
 
         # predicted projections + 2x2 innovation covariance (search ellipse,
         # reference GetSalientPointProjected2DPosWithUncertainty :3901).
         # A_un = H P and T_un = H P H^T are computed ONCE here and reused by
         # the fused update below (masking is an exact row/col scaling).
-        h, Hcam, Hlm = measure.measurement_jacobians(params, state.x)
-        Kcap = state.capacity
-        # NaN-safety: a diverged landmark's Jacobian row can be non-finite
-        # while UNMATCHED — and the precomputed fused update scales rows by
-        # the mask, where 0*nan = nan would poison the whole innovation
-        # system (the masked-slot NaN rule, see geom/so3.exp). Zero such
-        # rows and force them unmatchable.
-        row_ok = (jnp.all(jnp.isfinite(h), axis=-1)
-                  & jnp.all(jnp.isfinite(Hcam.reshape(Kcap, -1)), axis=-1)
-                  & jnp.all(jnp.isfinite(Hlm.reshape(Kcap, -1)), axis=-1))
-        h = jnp.where(row_ok[:, None], h, 0.0)
-        Hcam = jnp.where(row_ok[:, None, None], Hcam, 0.0)
-        Hlm = jnp.where(row_ok[:, None, None], Hlm, 0.0)
-        A_un = update_mod.hp_auto(Hcam, Hlm, state.P)    # [2K, D] = H P
-        T_un = update_mod.aht_auto(A_un, Hcam, Hlm)      # [2K, 2K] = A H^T
-        # per-slot 2x2 innovation: the diagonal 2x2 blocks of T_un + R
-        T_blocks = T_un.reshape(Kcap, 2, Kcap, 2)
-        S2 = (jnp.einsum("kikj->kij", T_blocks)
-              + params.measurm_noise_var * jnp.eye(2, dtype=state.x.dtype))
-        det = (S2[:, 0, 0] * S2[:, 1, 1] - S2[:, 0, 1] * S2[:, 1, 0])
-        det = jnp.where(jnp.abs(det) > 1e-12, det, 1e-12)
-        sigma_inv = (jnp.stack([
-            jnp.stack([S2[:, 1, 1], -S2[:, 0, 1]], -1),
-            jnp.stack([-S2[:, 1, 0], S2[:, 0, 0]], -1)], -2)
-            / det[:, None, None])
+        with jax.named_scope("predict_ellipse"):
+            h, Hcam, Hlm = measure.measurement_jacobians(params, state.x)
+            Kcap = state.capacity
+            # NaN-safety: a diverged landmark's Jacobian row can be
+            # non-finite while UNMATCHED — and the precomputed fused update
+            # scales rows by the mask, where 0*nan = nan would poison the
+            # whole innovation system (the masked-slot NaN rule, see
+            # geom/so3.exp). Zero such rows and force them unmatchable.
+            row_ok = (jnp.all(jnp.isfinite(h), axis=-1)
+                      & jnp.all(jnp.isfinite(Hcam.reshape(Kcap, -1)), axis=-1)
+                      & jnp.all(jnp.isfinite(Hlm.reshape(Kcap, -1)), axis=-1))
+            h = jnp.where(row_ok[:, None], h, 0.0)
+            Hcam = jnp.where(row_ok[:, None, None], Hcam, 0.0)
+            Hlm = jnp.where(row_ok[:, None, None], Hlm, 0.0)
+            A_un = update_mod.hp_auto(Hcam, Hlm, state.P)    # [2K, D] = H P
+            T_un = update_mod.aht_auto(A_un, Hcam, Hlm)      # [2K, 2K] = A H^T
+            # per-slot 2x2 innovation: the diagonal 2x2 blocks of T_un + R
+            T_blocks = T_un.reshape(Kcap, 2, Kcap, 2)
+            S2 = (jnp.einsum("kikj->kij", T_blocks)
+                  + params.measurm_noise_var * jnp.eye(2, dtype=state.x.dtype))
+            det = (S2[:, 0, 0] * S2[:, 1, 1] - S2[:, 0, 1] * S2[:, 1, 0])
+            det = jnp.where(jnp.abs(det) > 1e-12, det, 1e-12)
+            sigma_inv = (jnp.stack([
+                jnp.stack([S2[:, 1, 1], -S2[:, 0, 1]], -1),
+                jnp.stack([-S2[:, 1, 0], S2[:, 0, 0]], -1)], -2)
+                / det[:, None, None])
 
-        res = ncc_search(
-            img, h, templates, state.lm_active,
-            search_radius=search_radius, min_corr_coeff=min_corr_coeff,
-            sigma_inv=sigma_inv, chi2_gate=chi2_gate, use_pallas=use_pallas,
-            subpixel=subpixel)
+        with jax.named_scope("ncc_search"):
+            res = ncc_search(
+                img, h, templates, state.lm_active,
+                search_radius=search_radius, min_corr_coeff=min_corr_coeff,
+                sigma_inv=sigma_inv, chi2_gate=chi2_gate, subpixel=subpixel)
         obs = res.best_center
         obs_mask = (res.matched & state.lm_active & row_ok)
 
@@ -322,10 +323,11 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             # spatial suppression vs tracked slots, claim freed capacity with
             # PRIOR inverse depth, cut templates from the live image ----
             active_after = state.lm_active
-            cand_xy, cand_ok = features.detect_corners(
-                img, max_corners=detector_corners,
-                nms_radius=detector_nms_radius, border=templ_width,
-                quality_level=detector_quality)
+            with jax.named_scope("detect_corners"):
+                cand_xy, cand_ok = features.detect_corners(
+                    img, max_corners=detector_corners,
+                    nms_radius=detector_nms_radius, border=templ_width,
+                    quality_level=detector_quality)
             cur_pos = jnp.where(res.matched[:, None], obs, h)
             cand_ok = features.filter_out_closest(
                 cand_xy, cand_ok, cur_pos, active_after, recruit_min_dist)
@@ -346,12 +348,13 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
                     params, state.x, active_after, Kcap, new_pix, cur_pos)
             else:
                 rho0 = None
-            x_next, P_next, resid, x_upd, slots = (
-                fused_mod.fused_update_health_recruit_predict(
-                    params, state.x, state.P, obs, obs_mask,
-                    new_pix, new_valid, jnp.logical_not(active_after),
-                    precomputed=(h, A_un, T_un), deactivate_mask=drop,
-                    rho0=rho0))
+            with jax.named_scope("fused_update"):
+                x_next, P_next, resid, x_upd, slots = (
+                    fused_mod.fused_update_health_recruit_predict(
+                        params, state.x, state.P, obs, obs_mask,
+                        new_pix, new_valid, jnp.logical_not(active_after),
+                        precomputed=(h, A_un, T_un), deactivate_mask=drop,
+                        rho0=rho0))
             slot_safe = jnp.where(slots >= 0, slots, Kcap)
             active = active_after.at[slot_safe].set(True, mode="drop")
             unobs2 = state.lm_unobserved.at[slot_safe].set(0, mode="drop")
@@ -368,10 +371,11 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             return (state, templates), (err, n, x_upd[:3], n_rec, n_active)
 
         if update_impl == 1:
-            x_next, P_next, resid, x_upd = (
-                fused_mod.fused_update_health_predict(
-                    params, state.x, state.P, obs, obs_mask,
-                    precomputed=(h, A_un, T_un), deactivate_mask=drop))
+            with jax.named_scope("fused_update"):
+                x_next, P_next, resid, x_upd = (
+                    fused_mod.fused_update_health_predict(
+                        params, state.x, state.P, obs, obs_mask,
+                        precomputed=(h, A_un, T_un), deactivate_mask=drop))
             state = state._replace(x=x_next, P=P_next)
         else:
             # impls 2-4 (reference davison-mono-slam.cpp:900-915)

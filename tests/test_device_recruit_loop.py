@@ -34,8 +34,7 @@ def _run_churn(recruit=True, capacity=20, n_points=30, frames=100,
     st, templates = jax.jit(lambda s: init_imageseq(
         params, sc, s, 15, max_bootstrap=capacity - 4))(st)
     run = make_imageseq_scan_runner(params, templ_width=15, search_radius=9,
-                                    recruit=recruit, recruit_max=4,
-                                    use_pallas=False)
+                                    recruit=recruit, recruit_max=4)
     fr = jnp.arange(1, frames + 1)
     out = run(st, templates, sc, fr)
     gt_pos = -jnp.einsum("fji,fj->fi", sc.gt_cfw_R[fr], sc.gt_cfw_t[fr])

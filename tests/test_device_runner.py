@@ -84,8 +84,7 @@ def test_imageseq_runner_impl_2_3():
     for impl in (2, 3):
         st = init_state(capacity, dtype=dtype)
         st, templates = dr.init_imageseq(params, sc, st, 15)
-        run = dr.make_imageseq_scan_runner(params, use_pallas=False,
-                                           update_impl=impl)
+        run = dr.make_imageseq_scan_runner(params, update_impl=impl)
         st2, (errs, nmatch, _) = run(st, templates, sc, jnp.arange(1, 21))
         assert bool(jnp.all(jnp.isfinite(errs))), impl
         # the sequential impls track a solid majority early and keep at least
@@ -97,9 +96,9 @@ def test_imageseq_runner_impl_2_3():
 
 
 def test_long_horizon_f32_stability():
-    """f32 long-horizon run (the TPU dtype): residuals stay at noise level,
-    covariance healthy after 300+ frames (CPU executes f32 exactly; on TPU
-    this requires matmul precision 'highest' — bench.py sets it)."""
+    """f32 long-horizon run (the benchmark dtype): residuals stay at noise
+    level, covariance healthy after 300+ frames (CPU executes f32 exactly;
+    on a GPU this requires matmul precision 'highest' — bench.py sets it)."""
     dtype = jnp.float32
     sc = build_device_scenario(capacity=32, dtype=dtype)
     cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95, (0.01, 0.01),
@@ -139,7 +138,7 @@ def test_imageseq_device_loop_tracks():
     st, templates = dr.init_imageseq(params, sc, st, 15)
     assert int(jnp.sum(st.lm_active)) == capacity
 
-    run = dr.make_imageseq_scan_runner(params, use_pallas=False)
+    run = dr.make_imageseq_scan_runner(params)
     st2, (errs, nmatch, cam_pos) = run(st, templates, sc, jnp.arange(1, 61))
     errs = np.asarray(errs)
     nmatch = np.asarray(nmatch)

@@ -1,7 +1,7 @@
 """Large-K f32 conditioning mechanisms (found at the K=768 regime, see
 bench.py): the delete-unobserved policy folded into the fused congruence
 (reference RemoveLongTermUnobservedSalientPoints, davison-mono-slam.cpp:799)
-and the per-frame covariance diagonal inflation (TPU-f32 addition; the
+and the per-frame covariance diagonal inflation (f32 addition; the
 reference's f64 never needed it)."""
 
 import jax
@@ -85,8 +85,7 @@ def test_imageseq_loop_deletes_long_unobserved():
     st = init_state(cap, dtype=dtype)
     st, templates = jax.jit(lambda s: init_imageseq(params, sc, s, 9))(st)
     n0 = int(jnp.sum(st.lm_active))
-    run = make_imageseq_scan_runner(params, templ_width=9, search_radius=5,
-                                    use_pallas=False)
+    run = make_imageseq_scan_runner(params, templ_width=9, search_radius=5)
     st, (err, n, pos) = run(st, templates, sc, jnp.arange(1, 60))
     assert bool(jnp.all(jnp.isfinite(st.x)))
     n1 = int(jnp.sum(st.lm_active))

@@ -35,13 +35,12 @@ def test_sharded_imageseq_matches_single(n_dev):
     params, sc, st, templates = _setup()
     frames = jnp.arange(1, 13)
 
-    run1 = dr.make_imageseq_scan_runner(params, templ_width=15,
-                                        use_pallas=False)
+    run1 = dr.make_imageseq_scan_runner(params, templ_width=15)
     st1, (err1, n1, pos1) = run1(st, templates, sc, frames)
 
     runp = make_sharded_imageseq_runner(params, st.capacity,
                                         landmark_mesh(n_dev),
-                                        templ_width=15, use_pallas=False)
+                                        templ_width=15)
     x2, P2, active2, unobs2, (err2, n2, pos2) = runp(
         st.x, st.P, templates, st.lm_active, st.lm_unobserved, sc, frames)
 
@@ -104,7 +103,7 @@ def test_sharded_imageseq_recruit_matches_single(n_dev, depth):
     # run provably exercises the full lifecycle, not just first-fill
     templates = templates.at[3].set(0.0)
     frames = jnp.arange(1, 13)
-    kw = dict(templ_width=15, use_pallas=False, recruit=True,
+    kw = dict(templ_width=15, recruit=True,
               recruit_max=4, detector_corners=24, recruit_depth=depth)
 
     run1 = dr.make_imageseq_scan_runner(params, **kw)
@@ -153,7 +152,7 @@ def test_sharded_imageseq_recruit_parity_at_k256():
                                              max_bootstrap=224,
                                              image_size=(640, 480))
     frames = jnp.arange(1, 7)
-    kw = dict(templ_width=15, use_pallas=False, recruit=True,
+    kw = dict(templ_width=15, recruit=True,
               recruit_max=8, detector_corners=48)
 
     run1 = dr.make_imageseq_scan_runner(params, **kw)
@@ -192,14 +191,13 @@ def test_sharded_imageseq_delete_policy_fires():
     templates = templates.at[3].set(0.0)
     frames = jnp.arange(1, 9)
 
-    run1 = dr.make_imageseq_scan_runner(params, templ_width=15,
-                                        use_pallas=False)
+    run1 = dr.make_imageseq_scan_runner(params, templ_width=15)
     st1, _ = run1(st, templates, sc, frames)
     assert not bool(st1.lm_active[3])      # dropped after 4 unmatched frames
 
     runp = make_sharded_imageseq_runner(params, st.capacity,
                                         landmark_mesh(8),
-                                        templ_width=15, use_pallas=False)
+                                        templ_width=15)
     x2, P2, active2, _, _ = runp(
         st.x, st.P, templates, st.lm_active, st.lm_unobserved, sc, frames)
     np.testing.assert_array_equal(np.asarray(active2),

@@ -320,7 +320,7 @@ def _run_local_churn():
         params, sc, s, 15, max_bootstrap=20))(st)
     run = make_imageseq_scan_runner(params, templ_width=15, search_radius=9,
                                     recruit=True, recruit_max=4,
-                                    recruit_depth="local", use_pallas=False)
+                                    recruit_depth="local")
     fr = jnp.arange(1, 41)
     out = run(st, templates, sc, fr)
     gt_pos = -jnp.einsum("fji,fj->fi", sc.gt_cfw_R[fr], sc.gt_cfw_t[fr])

@@ -124,8 +124,8 @@ def test_se3_graph_cannot_fix_scale_drift():
 
 def test_sim3_device_loop_matches_host():
     """The one-dispatch Sim(3) LM (lm_device driver) must recover the same
-    GT ring as the host-driven schedule (round-4 latency work: closures on
-    a remote-attached chip pay per-attempt round-trips in the host path)."""
+    GT ring as the host-driven schedule (the host path pays per-attempt
+    host syncs)."""
     n = 24
     R_gt, t_gt = _ring_poses(n)
     R0 = [R_gt[0]]
